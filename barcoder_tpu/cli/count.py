@@ -33,7 +33,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--engine", choices=["auto", "vector", "device", "sharded", "reference"],
         default="auto",
-        help="Counting engine: vectorized host path, TPU-resident matcher, "
+        help="Counting engine: vectorized host path, device-resident matcher, "
         "mesh-sharded data-parallel matcher, or per-read port.",
     )
     p.add_argument(

@@ -2,9 +2,9 @@
 
 This is the portable device path: scores[s, p] = Σ_j <onehot(q[s, j]),
 onehot(g[p + j])>, computed per position chunk as a plain GEMM (the G
-one-hot build is shared with the Pallas phase-2 path), so XLA lowers it to
-the matrix unit on TPU and to efficient vectorized code on CPU (where tests
-run on fake devices). The Pallas kernel (pallas_scan.py) computes the same
+one-hot build is shared with the phase-2 path), which XLA lowers to a
+library matrix product on the GPU and to vectorized code on the CPU (where
+tests run on fake devices). The phase-1 kernel (pallas_scan.py) computes the same
 quantity with fused PAM masking and without materializing the S×N score
 matrix; this module is its reference semantics.
 
@@ -37,7 +37,12 @@ def _chunk_hitmask_mm(q_oh_rows, g_codes, mask_chunk, L: int, K: int, thresh: in
 
     P = mask_chunk.shape[0]
     g_oh = _build_g_onehot(g_codes, L=L, K=K, P=P)  # (K, P)
-    scores = jnp.dot(q_oh_rows, g_oh, preferred_element_type=jnp.float32)
+    # f32 one-hots: HIGHEST keeps the product exact on GPUs, where an f32
+    # product otherwise runs in TF32
+    scores = jnp.dot(
+        q_oh_rows, g_oh, preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST,
+    )
     mm = (L - scores).astype(jnp.int32)
     sel = (mm <= thresh) & mask_chunk[None, :]
     return mm, sel

@@ -6,7 +6,10 @@ contiguous tile of positions, with wrap halos materialized host-side), the
 spacer library replicated, per-shard hit counts merged with ``psum`` and hit
 lists gathered with ``all_gather``. This replaces the reference's host-only
 process pools and Bowtie threads (heuristicount.py:720-722,
-targets.py:499-504); there is no NCCL/MPI — collectives ride ICI/DCN via XLA.
+targets.py:499-504); collectives are XLA's (NCCL between GPUs, Gloo between
+CPU processes). Every card of a host reaches every other at the same rate,
+so the mesh follows the algorithm: a 1-D genome axis, optionally a library
+axis.
 """
 
 from __future__ import annotations

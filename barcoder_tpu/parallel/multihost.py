@@ -1,11 +1,9 @@
 """Multi-host (multi-process) execution: the DCN half of the distributed
 plan.
 
-SURVEY.md §2's communication inventory is "ICI (intra-slice) / DCN
-(multi-slice)"; BASELINE's north star tiles the genome across HOSTS. The
-reference scales across host cores with fork pools
-(heuristicount.py:720-722, distillreads.py:350-433); the TPU-native
-generalization is one JAX process per host joined into a single global
+The reference scales across host cores with fork pools
+(heuristicount.py:720-722, distillreads.py:350-433); the generalization
+here is one JAX process per host joined into a single global
 device mesh by ``jax.distributed``, with the SAME shard_map programs the
 single-process engines compile running unchanged — XLA routes the psum /
 all_gather / ppermute segments that cross a host boundary over DCN (Gloo on
@@ -32,8 +30,8 @@ banners directly to fd 1 (C++ iostream) when ranks first connect, and the
 unbuffered native writes can interleave mid-line with Python's stdout. The
 CLI shields against this by re-pointing fd 1 at stderr and keeping a
 private dup of the original stdout for data (cli.main._shield_stdout), so
-CLI stdout stays byte-clean even on the CPU stand-in. Real TPU pods ride
-ICI/DCN and never print these banners. Library users embedding multi-host
+CLI stdout stays byte-clean even on the CPU stand-in. GPU meshes use NCCL
+and never print these banners. Library users embedding multi-host
 engines with machine-read stdout should apply the same shield.
 """
 

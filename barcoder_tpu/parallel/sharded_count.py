@@ -1,9 +1,9 @@
 """Data-parallel barcode counting over a device mesh (shard_map + psum).
 
 The reference's counting phase merges per-process ``Counter``s from a fork
-pool (heuristicount.py:720-737). The TPU-native equivalent here shards the
+pool (heuristicount.py:720-737). The equivalent here shards the
 read-batch axis over a 1-D mesh: each device exact-matches its rows against
-the replicated barcode one-hot table on the MXU (the same formulation as
+the replicated barcode one-hot table with a matmul (the same formulation as
 ``pipeline.heuristic_count.DeviceCounter``), builds a per-barcode local
 count vector, and the vectors merge on-device with ``lax.psum`` — the
 collective Counter merge. The matched mask comes back sharded because

@@ -6,7 +6,7 @@ engine to find off-targets, then apply the selection-filter cascade
 (orientation, offtargets, ambiguity, intergenic, full-overlap, tiling,
 top-N per gene).
 
-TPU-native differences from the reference:
+Differences from the reference:
   - candidate enumeration is the PAM site mask + a packed-key dedup
     (vectorized) instead of a Python regex over both strand strings
     (design_guides.py:22-49);

@@ -1,9 +1,9 @@
 // seqpack — native host-side sequence kit for barcoder_tpu.
 //
 // The reference's native surface is third-party (Bowtie's C++ aligner,
-// pysam/htslib, pyzstd; SURVEY.md §2). The TPU port moves alignment onto the
+// pysam/htslib, pyzstd; SURVEY.md §2). This port moves alignment onto the
 // device, which leaves host IO — FASTQ parsing, byte-matrix building,
-// 2-bit packing, revcomp — as the hot host loops feeding the chip. This
+// 2-bit packing, revcomp — as the hot host loops feeding the device. This
 // library implements them in C++ (exposed via ctypes, no pybind11):
 //
 //   - sp_parse_fastq: one pass over a raw FASTQ buffer → fixed-width read

@@ -15,7 +15,7 @@ from barcoder_tpu.seqio.genbank import write_genbank
 
 from .genomes import make_record, plant_guide, random_seq
 
-ENV = dict(os.environ, BARCODER_TPU_PLATFORM="cpu", BARCODER_TPU_BACKEND="jax")
+ENV = dict(os.environ, JAX_PLATFORMS="cpu", BARCODER_TPU_BACKEND="jax")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

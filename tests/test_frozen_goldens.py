@@ -3,8 +3,8 @@
 tests/goldens/cn32_zmo_ngnc_v{1,2,3}.tsv were generated ONCE by the numpy
 oracle backend on the bundled SnapGene contigs (experiments/freeze_goldens.py)
 and committed. run_targets must reproduce each byte-for-byte on the jax and
-pallas-interpret backends — a regression on any mismatch-budget path fails a
-golden, not just a fuzz seed. The subset library (all spacers with >=1
+pallas backends — a regression on any mismatch-budget path fails a golden,
+not just a fuzz seed. The subset library (all spacers with >=1
 plasmid hit at v<=3 plus 50 non-targeting) is committed alongside.
 """
 
@@ -46,5 +46,5 @@ def test_jax_backend_reproduces_golden(genome, subset_lib, v):
 @pytest.mark.parametrize("v", [1, 3])
 @pytest.mark.slow
 def test_pallas_interpret_reproduces_golden(genome, subset_lib, v):
-    res = run_targets(subset_lib, genome, "NGNC", v, backend="pallas-interpret")
+    res = run_targets(subset_lib, genome, "NGNC", v, backend="pallas")
     assert res.table.to_csv(sep="\t", index=False) == _golden(v)

@@ -335,7 +335,7 @@ class TestSamplingPrefilter:
 
 
 class TestDeviceEngine:
-    """DeviceCounter (TPU-resident matching; MXU one-hot matmul) must agree
+    """DeviceCounter (device-resident matching; one-hot matmul) must agree
     exactly with VectorCounter on every data shape. Runs on the CPU jax
     backend in tests."""
 

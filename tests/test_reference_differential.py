@@ -44,7 +44,7 @@ def run_script(script, args, cwd=REF, timeout=600):
 
 def run_ours(argv, timeout=600):
     env = dict(os.environ)
-    env["BARCODER_TPU_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     env["BARCODER_TPU_BACKEND"] = "jax"
     proc = subprocess.run(
         [sys.executable, "-m", "barcoder_tpu", *argv],

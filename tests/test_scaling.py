@@ -9,10 +9,10 @@ from barcoder_tpu.parallel.scaling import measure_scaling
 def test_measure_scaling_mechanics():
     r = measure_scaling(
         n_bp=1 << 16, n_spacers=128, repeats=1, device_counts=[1, 2, 8],
-        engine="both", single_chip=False,
+        single_chip=False,
     )
     assert r["fake_devices"] is True
-    for eng in ("flagship", "blockmax"):
+    for eng in ("flagship",):
         assert [p["devices"] for p in r[eng]] == [1, 2, 8]
         for p in r[eng]:
             assert p["spacer_positions_per_s"] > 0

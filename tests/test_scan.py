@@ -227,22 +227,26 @@ def test_sharded_backend_dispatch_matches_oracle():
 
 
 def test_auto_backend_prefers_sharded_on_multichip(monkeypatch):
-    """auto = jax without a TPU; the sharded engine on ANY TPU topology
-    (r4: it beats the phase-chained single-chip path at every measured
-    shape, even on one device)."""
+    """auto = the sharded engine on every platform and device count (a
+    1-device mesh on one card); the one platform decision
+    (utils.platform.device_platform) refuses anything but gpu/cpu."""
+    import jax
+
     from barcoder_tpu.ops import scan as scan_mod
+    from barcoder_tpu.utils import platform as plat
 
     class _Dev:
         def __init__(self, platform):
             self.platform = platform
 
     monkeypatch.delenv("BARCODER_TPU_BACKEND", raising=False)
-    monkeypatch.setattr(scan_mod.jax, "devices", lambda: [_Dev("cpu")])
-    assert scan_mod.resolve_backend("auto") == "jax"
-    monkeypatch.setattr(scan_mod.jax, "devices", lambda: [_Dev("tpu")])
-    assert scan_mod.resolve_backend("auto") == "sharded"
-    monkeypatch.setattr(scan_mod.jax, "devices", lambda: [_Dev("tpu")] * 4)
-    assert scan_mod.resolve_backend("auto") == "sharded"
+    for devs in ([_Dev("cpu")], [_Dev("gpu")], [_Dev("gpu")] * 4):
+        monkeypatch.setattr(jax, "devices", lambda devs=devs: devs)
+        assert scan_mod.resolve_backend("auto") == "sharded"
+        assert plat.device_platform() == devs[0].platform
+    monkeypatch.setattr(jax, "devices", lambda: [_Dev("rocm")])
+    with pytest.raises(RuntimeError, match="unsupported JAX platform"):
+        plat.device_platform()
     monkeypatch.setenv("BARCODER_TPU_BACKEND", "oracle")
     assert scan_mod.resolve_backend("auto") == "oracle"
 

@@ -160,7 +160,7 @@ def test_dense_repeat_topk_retry():
 
 def test_strided_pack_roundtrips():
     """Block-strided 2-bit/nibble packing (r5: the device unpack must be a
-    flat plane concat, never a small-minor-axis stack whose TPU lane
+    flat plane concat, never a small-minor-axis stack whose tiled lane
     padding inflates 32-64x — the 250 Mb site-table OOM class): host pack →
     device unpack is the identity for every length class."""
     import numpy as np
